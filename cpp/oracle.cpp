@@ -1,11 +1,11 @@
 // C++ CPU validation oracle (SURVEY.md T8 / L7, §7 PR6).
 //
 // Reference parity: plays the role of an independent ground-truth renderer
-// for the TPU framework — the same job the visual output of the OpenCL
+// for the JAX framework — the same job the visual output of the OpenCL
 // reference's window served (SURVEY.md §4: the reference had no tests).
 // This is a scalar, double-precision, textbook Moller-Trumbore path tracer
 // with a median-split BVH, deliberately sharing no code or formulation with
-// the TPU path (precompiled affine maps, cluster culling): agreement between
+// the JAX path (precompiled affine maps, cluster culling): agreement between
 // the two is meaningful evidence of correctness.
 //
 // Shading model mirrors tracer/render/whitted.py and tracer/refcpu/oracle.py

@@ -1,13 +1,11 @@
 #!/usr/bin/env python3
 """Config-3 flagship demo at spec scale: recover a vertex perturbation of
 the 82k-tri bunny from a 512x512 target image by gradient descent through
-the TILED Pallas tier (diff/fit.py routes there automatically on TPU).
-Reports the loss curve and wall time — 150 vertex steps plus 80 albedo
-steps run in under two minutes at ~40 ms/step (most of the wall time is
-the one-time sizing + compile)."""
+the tiled path (diff/fit.py routes there for use_bvh + use_pallas
+configs). Reports the loss curve and wall time per step (most of the wall
+time of a cold run is the one-time sizing + compile)."""
 import sys, os, time, dataclasses
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/root/.jax_cache")
 
 import jax.numpy as jnp
 import numpy as np
@@ -18,6 +16,9 @@ from tracer.utils.config import load_config
 
 
 def main():
+    from tracer.utils.cache import enable_compile_cache
+
+    enable_compile_cache()
     cfg = load_config("bunny512")
     scene, camera = get_scene(cfg)
     target = jnp.asarray(make_render_fn(scene, cfg)(scene, camera))

@@ -64,7 +64,7 @@ def test_pod1m_ring_accel_render_exact_and_matches_replicated():
     accel = build_clusters(scene.verts, scene.tris, 128, scene=scene)
     # k_cap=None: exact (a capped reference at k=64 truncates occluders and
     # leaks light here — it would "disagree" with the exact ring).
-    trace_fn, occlude_fn = make_accel_tracers(scene, accel, use_pallas=False,
+    trace_fn, occlude_fn = make_accel_tracers(scene, accel,
                                               k_cap=None)
     wcfg = WhittedConfig(max_bounces=cfg.max_bounces,
                          smooth_shading=cfg.smooth_shading)

@@ -14,7 +14,7 @@ from tracer.dist.ring import make_ring_render_fn
 from tracer.render.whitted import WhittedConfig, render_image
 from tracer.utils.config import load_config
 
-from tests.dist.gates import dist_check
+from tracer.utils.metrics import dist_check
 
 
 CFG = load_config("cornell256", height=64, width=64, max_bounces=2)

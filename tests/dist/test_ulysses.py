@@ -81,7 +81,7 @@ def test_resharded_bounce_render_matches_plain():
                                         reshard_bounces=True)
     img_p = np.asarray(plain(scene, cam))
     img_r = np.asarray(resh(scene, cam))
-    from tests.dist.gates import dist_check
+    from tracer.utils.metrics import dist_check
 
     # Exactness claim -> the tightest gate: 0.1% flip budget AND p98 at
     # fp32-rounding scale (two-sided, VERDICT r4 weak #7).

@@ -1,7 +1,7 @@
 """Large golden tests against the C++ oracle (SURVEY.md §4, T8; VERDICT r2
-item 3): bunny-with-shadows at 512x512 through the production cluster-accel
-path, and a columned-hall crop at 256x256 through the PALLAS kernels
-(interpret mode on CPU). Skipped gracefully if the C++ oracle can't build."""
+item 3): bunny-with-shadows at 512x512 through the production tiled path
+(plain walk on CPU), and a columned-hall crop at 256x256 through the walk's
+Pallas kernel (interpret mode on CPU). Skipped gracefully if the C++ oracle can't build."""
 import numpy as np
 import pytest
 
@@ -16,7 +16,7 @@ pytestmark = pytest.mark.skipif(
 def _golden_check(img, ref, frac_tol=0.015, p98_tol=2e-3):
     assert np.isfinite(img).all()
     err = np.abs(img - ref).max(axis=-1)
-    # Edge/silhouette pixels legitimately flip between fp32 (TPU path) and
+    # Edge/silhouette pixels legitimately flip between fp32 (JAX path) and
     # fp64 (oracle); everywhere else agreement must be tight (BASELINE:
     # "image allclose rtol 1e-3" up to discrete hit reassignment).
     frac_bad = (err > 2e-3).mean()
@@ -28,7 +28,7 @@ def _golden_check(img, ref, frac_tol=0.015, p98_tol=2e-3):
 def test_bunny512_with_shadows_matches_cpp_oracle():
     cfg = load_config("bunny512")  # 512x512, ~82k tris, BVH path
     scene, camera = get_scene(cfg)
-    run = make_render_fn(scene, cfg)  # cluster-accel tier (jnp on CPU)
+    run = make_render_fn(scene, cfg)  # tiled path (plain walk on CPU)
     img = np.asarray(run(scene, camera))
     ref = cpp_oracle.cpp_render(scene, camera, cfg.height, cfg.width,
                                 max_bounces=cfg.max_bounces,
@@ -39,8 +39,9 @@ def test_bunny512_with_shadows_matches_cpp_oracle():
 
 
 def test_hall256_pallas_interpret_matches_cpp_oracle():
-    """Whole tiled/Pallas pipeline (cull -> sorted closest -> light-origin
-    shadow kernels) in interpret mode vs the C++ oracle."""
+    """Whole tiled pipeline (cull -> sorted closest walk -> light-origin
+    shadow walk) with the walk's kernel in interpret mode vs the C++
+    oracle."""
     from tracer.bvh import build_scene_accel
     from tracer.render.tiled import render_tiled
     from tracer.render.whitted import WhittedConfig
@@ -95,7 +96,7 @@ def test_sponza_class_1080p_crop_matches_cpp_oracle():
     # Candidate-cap overflow would print the work-list warning and show up
     # as image error against the oracle, so the cap is self-checking.
     accel = build_scene_accel(scene)
-    trace_fn, occlude_fn = make_accel_tracers(scene, accel, use_pallas=False,
+    trace_fn, occlude_fn = make_accel_tracers(scene, accel,
                                               k_cap=128)
     img = np.asarray(render_wavefront(scene, rays, wcfg, trace_fn, occlude_fn))
     ref = cpp_oracle.cpp_render(scene, camera, cfg.height, cfg.width,

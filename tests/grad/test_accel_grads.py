@@ -103,7 +103,7 @@ def _hard_accel_loss(dx, cluster_size=4):
 
     scene = occluder_scene(dx)
     accel = build_clusters(scene.verts, scene.tris, cluster_size, scene=scene)
-    trace_fn, occlude_fn = make_accel_tracers(scene, accel, use_pallas=False)
+    trace_fn, occlude_fn = make_accel_tracers(scene, accel)
     rays = generate_rays(CAM, 64, 64)
     img = render_wavefront(scene, rays, WCFG, trace_fn, occlude_fn)
     return jnp.mean(img)

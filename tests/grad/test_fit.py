@@ -1,4 +1,4 @@
-"""Inverse-rendering fit loop: convergence, orbax checkpoint/resume, and
+"""Inverse-rendering fit loop: convergence, checkpoint/resume, and
 kill-mid-run fault injection (SURVEY.md §5 'Failure detection / fault
 injection' + §7 PR3; VERDICT r2 item 5)."""
 import os

@@ -1,11 +1,10 @@
-"""Gradients through the TILED Pallas-kernel grad step (VERDICT r4
-missing #3): make_grad_step_fn's tiled tier — selection kernels
-(stop-gradiented) + differentiable shade-row recompute, with the accel
-built inside the loss — must produce the same gradients as the jnp accel
-tier (itself FD-validated in test_accel_grads.py). Kernels run in
-interpret mode on the CPU test platform; the identical code path runs the
-real Mosaic kernels on TPU (bench.py reports grad_step_bunny512_ms
-through it)."""
+"""Gradients through the TILED grad step: make_grad_step_fn's tiled tier —
+the stop-gradiented walk selects, the differentiable shade-row recompute
+carries the gradients, with the accel built inside the loss — must produce
+the same gradients as the jnp accel tier (itself FD-validated in
+test_accel_grads.py). The walk's kernel runs in interpret mode on the CPU
+test platform; the identical code path runs it compiled on the GPU
+(chip_smoke.py phase (d) checks the same parity there)."""
 import dataclasses as dc
 
 import jax
@@ -63,8 +62,8 @@ def test_tiled_grad_step_matches_jnp_tier(setup):
 
 
 def test_fit_uses_tiled_tier_and_converges(monkeypatch):
-    """fit() routes non-edge-aware optimization through the tiled Pallas
-    tier when _use_tiled_path holds (forced interpret here): caps are
+    """fit() routes non-edge-aware optimization through the tiled path
+    when _use_tiled_path holds (forced interpret here): caps are
     sized by a forward render and the loss decreases."""
     import tracer.api as api
     from tracer.api import get_scene, make_render_fn

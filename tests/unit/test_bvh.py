@@ -10,7 +10,7 @@ from tracer.bvh.cull import cull_clusters
 from tracer.core.types import Ray, T_FAR
 from tracer.core import intersect as ci
 from tracer.kernels.traversal import (
-    tile_rays, untile, trace_tiles_jnp, any_hit_tiles_jnp, build_worklist,
+    tile_rays, untile, trace_tiles_jnp, any_hit_tiles_jnp,
 )
 from tracer.scene.procedural import random_tri_soup, bunny_scene
 
@@ -121,25 +121,6 @@ def test_any_hit_matches_brute():
     np.testing.assert_array_equal(np.asarray(occ), np.asarray(ref))
 
 
-def test_worklist_structure():
-    cand = jnp.asarray([[0, 1, 2, 0], [3, 3, 3, 3], [1, 2, 1, 1]], jnp.int32)
-    counts = jnp.asarray([3, 0, 2], jnp.int32)
-    tile_of, cluster_of, valid, overflow = build_worklist(cand, counts, 8)
-    tile_of = np.asarray(tile_of)
-    valid = np.asarray(valid)
-    # Tile-ordered, each tile present at least once.
-    assert (np.diff(tile_of) >= 0).all()
-    for t in range(3):
-        assert (tile_of == t).any()
-    # Tile 1 has zero candidates: its single item must be invalid.
-    assert valid[tile_of == 1].sum() == 0
-    assert valid.sum() == 5  # 3 + 0 + 2
-    assert not bool(overflow)
-    # Overflow detection.
-    *_, overflow = build_worklist(cand, counts, 3)
-    assert bool(overflow)
-
-
 def test_image_tiling_roundtrip():
     rng = np.random.default_rng(0)
     img = rng.normal(size=(32, 48, 3)).astype(np.float32)
@@ -175,73 +156,10 @@ def test_two_stage_cull_matches_dense(n_tris, tr, seed):
     k = max(8, -(-k // 8) * 8)
     w1, c1, e1 = cull_clusters_sorted(accel, o_t, d_t, T_FAR, k)
     w2, c2, e2, _need = cull_clusters_sorted2(accel, o_t, d_t, T_FAR, k,
-                                              s_cap=accel.super_lo.shape[0],
-                                              bf16_fetch=False)
+                                              s_cap=accel.super_lo.shape[0])
     np.testing.assert_array_equal(np.asarray(c1), np.asarray(c2))
     np.testing.assert_array_equal(np.asarray(w1), np.asarray(w2))
     assert int(e1) == int(e2)
-
-    # Production mode (outward-rounded bf16 AABB fetch) must be a SUPERSET
-    # of the dense candidates (conservative over-approximation, never a
-    # miss): every dense candidate cluster appears in the bf16 list.
-    w3, c3, _, _need = cull_clusters_sorted2(accel, o_t, d_t, T_FAR,
-                                             accel.num_clusters,
-                                             s_cap=accel.super_lo.shape[0])
-    cl_mask = (1 << 17) - 1
-    w1n, w3n = np.asarray(w1), np.asarray(w3)
-    c1n, c3n = np.asarray(c1), np.asarray(c3)
-    assert (c3n >= c1n).all()
-    for i in range(w1n.shape[0]):
-        dense = set((w1n[i, :c1n[i]] & cl_mask).tolist())
-        bf16 = set((w3n[i, :c3n[i]] & cl_mask).tolist())
-        assert dense <= bf16, f"tile {i}: bf16 cull dropped {dense - bf16}"
-
-
-def test_cull_s_ultra_tier():
-    """s_ultra = (U, s_mid) region split of stage 2: identical words when U
-    honors the measured need (every region-B tile's supercluster count fits
-    s_mid); a starved U surfaces the hidden clusters via excess."""
-    from tracer.bvh.cull import cull_clusters_sorted2
-
-    scene = random_tri_soup(12000, seed=5)
-    accel = build_clusters(scene.verts, scene.tris, cluster_size=32)
-    n_sc = accel.super_lo.shape[0]
-    o, d = _random_rays_for_cull(2048, 5)
-    o_t, d_t, _ = tile_rays(o, d, 64)
-    # k < Ncl so the two-stage path (not the dense early-return) runs.
-    k = max(8, -(-(accel.num_clusters * 2 // 3) // 8) * 8)
-    assert k < accel.num_clusters
-    w_ref, c_ref, e_ref, need = cull_clusters_sorted2(
-        accel, o_t, d_t, T_FAR, k, s_cap=n_sc)
-    s_mid = 4
-    n_over = int(np.sum(np.asarray(_sup_counts(accel, o_t, d_t)) > s_mid))
-    assert n_over > 0, "fixture too small: no tile exceeds s_mid"
-
-    w_u, c_u, e_u, _ = cull_clusters_sorted2(
-        accel, o_t, d_t, T_FAR, k, s_cap=n_sc,
-        s_ultra=(n_over + 8, s_mid))
-    assert int(e_u) == int(e_ref)
-    np.testing.assert_array_equal(np.asarray(c_ref), np.asarray(c_u))
-    np.testing.assert_array_equal(np.asarray(w_ref), np.asarray(w_u))
-
-    # Starved ultra region: every tile whose supercluster count exceeds
-    # s_mid hides >= 1 feasible cluster, and all of them must be surfaced
-    # (the k-truncation term shrinks with the narrower stage 2, so the
-    # comparison is against the per-tile lower bound, not e_ref).
-    _, _, e_starved, _ = cull_clusters_sorted2(
-        accel, o_t, d_t, T_FAR, k, s_cap=n_sc, s_ultra=(0, s_mid))
-    assert int(e_starved) >= n_over > 0
-
-
-def _sup_counts(accel, o_t, d_t):
-    from tracer.bvh.cull import tile_bounds, frustum_aabb_entry
-
-    o_lo, o_hi, d_lo, d_hi = tile_bounds(o_t, d_t)
-    ok_s, _ = frustum_aabb_entry(
-        o_lo[:, None], o_hi[:, None], d_lo[:, None], d_hi[:, None],
-        accel.super_lo[None], accel.super_hi[None],
-        jnp.asarray(T_FAR)[None, None])
-    return jnp.sum(ok_s, axis=1)
 
 
 def test_two_stage_cull_supercluster_overflow_reported():

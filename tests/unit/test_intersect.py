@@ -1,5 +1,5 @@
 """Unit tests for the intersection core (SURVEY.md §4: Moller-Trumbore vs
-hand-computed hits; packed MXU path vs classic formulation)."""
+hand-computed hits; packed matmul path vs classic formulation)."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -42,7 +42,7 @@ def test_mt_miss_outside_and_behind():
 
 
 def test_packed_matches_moller_trumbore_random():
-    """The MXU affine-map formulation must agree with classic M-T on random
+    """The matmul affine-map formulation must agree with classic M-T on random
     ray/triangle soups (t, u, v AND the hit mask)."""
     rng = np.random.default_rng(0)
     R, T = 257, 63  # deliberately non-aligned sizes

@@ -1,7 +1,7 @@
 """Degenerate-geometry robustness: zero-area triangles, duplicated
 vertices, and coincident faces must never produce NaN/Inf pixels or
-crash any tier — the kernels' raw-IEEE-divide design (traversal2
-_cluster_t) relies on comparisons rejecting inf/NaN lanes, and this
+crash any tier — the walk's raw-IEEE-divide design (kernels.walk
+_epilogue) relies on comparisons rejecting inf/NaN lanes, and this
 pins that contract end to end."""
 import dataclasses as dc
 
@@ -66,20 +66,6 @@ def test_degenerate_tiled_interpret(degenerate_scene):
                             interpret=True, with_aux=True)
     assert int(aux["overflow"]) == 0
     _check(img)
-
-
-def test_degenerate_streamed_interpret(degenerate_scene):
-    from tracer.bvh.cluster import build_clusters
-    from tracer.kernels.stream import make_streamed_tracers
-
-    scene, cam = degenerate_scene
-    accel = build_clusters(scene.verts, scene.tris, cluster_size=4,
-                           scene=scene)
-    trace_fn, occlude_fn = make_streamed_tracers(scene, accel,
-                                                 interpret=True)
-    wcfg = WhittedConfig(max_bounces=2, smooth_shading=False)
-    rays = generate_rays(cam, 24, 24)
-    _check(render_wavefront(scene, rays, wcfg, trace_fn, occlude_fn))
 
 
 def test_degenerate_matches_brute(degenerate_scene):

@@ -1,4 +1,5 @@
-"""v2 sorted-traversal kernels vs brute force (interpret mode on CPU).
+"""Sorted-walk tracers vs brute force (the walk's kernel in interpret mode
+on CPU).
 
 Mirrors the reference's implicit correctness contract: the accelerated
 traversal must agree with testing every triangle (SURVEY.md §4 unit tests —
@@ -14,7 +15,7 @@ from tracer.bvh.cull import cull_clusters_sorted, pack_candidates, WORD_INVALID
 from tracer.core.camera import Camera, generate_rays
 from tracer.core.intersect import intersect_brute, any_hit_brute
 from tracer.core.types import Ray, T_FAR
-from tracer.kernels.traversal2 import make_sorted_tracers
+from tracer.kernels.walk import make_sorted_tracers
 from tracer.scene.procedural import bunny_scene, cornell_box
 
 
@@ -114,158 +115,25 @@ def test_cull_sorted_is_conservative(bunny):
         assert (cl[i, :k[i]] < accel.num_clusters).all()
 
 
-def test_split_matches_full_generic(bunny):
-    """trace_tiles_split (generic/fast/zero three-tier partition) ==
-    trace_tiles_sorted when the partition honors the measured needs, and a
-    too-narrow partition reports nonzero excess instead of silently
-    returning wrong tiles."""
-    from tracer.bvh.cull import cull_clusters_sorted2
-    from tracer.kernels.traversal import tile_rays
-    from tracer.kernels.traversal2 import (
-        trace_tiles_sorted, trace_tiles_split, FAST_BATCH)
-
-    scene, cam = bunny
-    rays = generate_rays(cam, 64, 64)
-    accel = build_clusters(scene.verts, scene.tris, cluster_size=32)
-    o_t, d_t, _ = tile_rays(rays.o, rays.d, 64)
-    k = max(8, -(-min(64, accel.num_clusters) // 8) * 8)
-    words, counts, _, _ = cull_clusters_sorted2(accel, o_t, d_t, T_FAR, k)
-    ref_bt, ref_gid = trace_tiles_sorted(o_t, d_t, accel, words, counts,
-                                         interpret=True)
-
-    c = np.asarray(counts)
-    need_split = int((c > FAST_BATCH).sum())
-    need_zero = int((c > 0).sum())
-    bt, gid, excess, needs = trace_tiles_split(
-        o_t, d_t, accel, words, counts, need_split + 8, need_zero + 8,
-        interpret=True)
-    assert int(excess) == 0
-    assert int(needs[0]) == need_split and int(needs[1]) == need_zero
-    np.testing.assert_array_equal(np.asarray(gid), np.asarray(ref_gid))
-    np.testing.assert_allclose(np.asarray(bt), np.asarray(ref_bt), rtol=1e-6)
-
-    # Starved generic region: must REPORT, not hide.
-    assert need_split > 8, "fixture too small to starve"
-    _, _, excess2, _ = trace_tiles_split(
-        o_t, d_t, accel, words, counts, 0, need_zero + 8, interpret=True)
-    assert int(excess2) > 0
-
-
-def test_split_ultra_tier(bunny):
-    """Four-tier split (ultra full-width region + k_mid mid region) ==
-    full generic when the ultra split honors the measured need; a starved
-    ultra region reports excess instead of silently truncating."""
-    from tracer.bvh.cull import cull_clusters_sorted2
-    from tracer.kernels.traversal import tile_rays
-    from tracer.kernels.traversal2 import (
-        trace_tiles_sorted, trace_tiles_split, FAST_BATCH)
-
-    scene, cam = bunny
-    rays = generate_rays(cam, 64, 64)
-    accel = build_clusters(scene.verts, scene.tris, cluster_size=32)
-    o_t, d_t, _ = tile_rays(rays.o, rays.d, 64)
-    k = max(8, -(-min(64, accel.num_clusters) // 8) * 8)
-    words, counts, _, _ = cull_clusters_sorted2(accel, o_t, d_t, T_FAR, k)
-    ref_bt, ref_gid = trace_tiles_sorted(o_t, d_t, accel, words, counts,
-                                         interpret=True)
-    c = np.asarray(counts)
-    k_mid = 8
-    n_over = int((c > k_mid).sum())
-    assert n_over > 0, "fixture too small: no tile exceeds k_mid"
-    need_split = int((c > FAST_BATCH).sum())
-    need_zero = int((c > 0).sum())
-
-    bt, gid, excess, _ = trace_tiles_split(
-        o_t, d_t, accel, words, counts, need_split + 8, need_zero + 8,
-        ultra_split=n_over + 8, k_mid=k_mid, interpret=True)
-    assert int(excess) == 0
-    np.testing.assert_array_equal(np.asarray(gid), np.asarray(ref_gid))
-    np.testing.assert_allclose(np.asarray(bt), np.asarray(ref_bt), rtol=1e-6)
-
-    # Starved ultra region: mid tiles with count > k_mid must be surfaced.
-    _, _, excess2, _ = trace_tiles_split(
-        o_t, d_t, accel, words, counts, need_split + 8, need_zero + 8,
-        ultra_split=0, k_mid=k_mid, interpret=True)
-    assert int(excess2) == n_over
-
-
-def test_anyhit_graded_matches_ungraded(bunny):
-    """any_hit_tiles_graded (B-graded lockstep + zero fill) ==
-    any_hit_tiles_sorted under an honest partition; only the zero tier can
-    be wrong, and starving it must report excess."""
-    from tracer.bvh.cull import cull_clusters_sorted2
-    from tracer.kernels.traversal import tile_rays
-    from tracer.kernels.traversal2 import (
-        any_hit_tiles_sorted, any_hit_tiles_graded)
-
-    scene, cam = bunny
-    rays = generate_rays(cam, 64, 64)
-    accel = build_clusters(scene.verts, scene.tris, cluster_size=32)
-    o_t, d_t, _ = tile_rays(rays.o, rays.d, 64)
-    tm = jnp.full(o_t.shape[:2], 10.0, jnp.float32)
-    k = max(8, -(-min(64, accel.num_clusters) // 8) * 8)
-    words, counts, _, _ = cull_clusters_sorted2(accel, o_t, d_t, tm, k)
-    ref = any_hit_tiles_sorted(o_t, d_t, tm, accel, words, counts,
-                               interpret=True)
-
-    c = np.asarray(counts)
-    b1 = int((c > 1).sum())
-    z = int((c > 0).sum())
-    occ, excess, needs = any_hit_tiles_graded(
-        o_t, d_t, tm, accel, words, counts, b1 + 8, z + 8, interpret=True)
-    assert int(excess) == 0
-    assert int(needs[0]) == b1 and int(needs[1]) == z
-    np.testing.assert_array_equal(np.asarray(occ), np.asarray(ref))
-
-    # A mis-sized B1 split is a PERF knob only — still exact.
-    occ2, excess2, _ = any_hit_tiles_graded(
-        o_t, d_t, tm, accel, words, counts, 0, z + 8, interpret=True)
-    assert int(excess2) == 0
-    np.testing.assert_array_equal(np.asarray(occ2), np.asarray(ref))
-
-    # A starved ZERO tier must report.
-    _, excess3, _ = any_hit_tiles_graded(
-        o_t, d_t, tm, accel, words, counts, 0, 0, interpret=True)
-    assert int(excess3) > 0
-
-    # Ultra tier: exact under an honest split, surfaced when starved.
-    k_mid = 8
-    n_over = int((c > k_mid).sum())
-    assert n_over > 0
-    occ3, excess4, _ = any_hit_tiles_graded(
-        o_t, d_t, tm, accel, words, counts, b1 + 8, z + 8,
-        ultra_split=n_over + 8, k_mid=k_mid, interpret=True)
-    assert int(excess4) == 0
-    np.testing.assert_array_equal(np.asarray(occ3), np.asarray(ref))
-    _, excess5, _ = any_hit_tiles_graded(
-        o_t, d_t, tm, accel, words, counts, b1 + 8, z + 8,
-        ultra_split=0, k_mid=k_mid, interpret=True)
-    assert int(excess5) == n_over
-
-
 def test_shared_origin_bit_identical(bunny):
-    """shared_o=True (origin-side products computed once off ray 0 and
-    broadcast — the primary/shadow-pass specialization) is BIT-identical
-    to the per-ray default whenever every ray in the pass carries the same
-    exact origin, for both the closest split and the graded any-hit."""
+    """Passing the pass's single origin point (the primary/shadow-pass
+    specialization: origin-side products once per cluster row) is
+    BIT-identical to per-ray origins whenever every ray carries that exact
+    origin, for both the closest walk and the any-hit walk."""
     from tracer.bvh.cull import cull_clusters_sorted2
     from tracer.kernels.traversal import generate_rays_tiled
-    from tracer.kernels.traversal2 import (
-        trace_tiles_split, any_hit_tiles_graded)
+    from tracer.kernels.walk import occlude_walk, trace_walk
 
     scene, cam = bunny
     accel = build_clusters(scene.verts, scene.tris, cluster_size=32)
     # Primary rays: generate_rays_tiled broadcasts cam.position exactly.
     o_t, d_t, _ = generate_rays_tiled(cam, 64, 64, 64)
     k = max(8, -(-min(64, accel.num_clusters) // 8) * 8)
-    words, counts, _, _ = cull_clusters_sorted2(accel, o_t, d_t, T_FAR, k)
-    nt = o_t.shape[0]
-    bt0, gid0, e0, _ = trace_tiles_split(o_t, d_t, accel, words, counts,
-                                         nt, nt, interpret=True)
-    bt1, gid1, e1, _ = trace_tiles_split(o_t, d_t, accel, words, counts,
-                                         nt, nt, interpret=True,
-                                         shared_o=True)
-    assert int(e0) == int(e1) == 0
+    words, counts, e0, _ = cull_clusters_sorted2(accel, o_t, d_t, T_FAR, k)
+    assert int(e0) == 0
+    bt0, gid0 = trace_walk(o_t, d_t, accel, words, counts, interpret=True)
+    bt1, gid1 = trace_walk(o_t, d_t, accel, words, counts,
+                           origin=cam.position, interpret=True)
     np.testing.assert_array_equal(np.asarray(bt0), np.asarray(bt1))
     np.testing.assert_array_equal(np.asarray(gid0), np.asarray(gid1))
 
@@ -275,11 +143,10 @@ def test_shared_origin_bit_identical(bunny):
     o2 = jnp.broadcast_to(lpos, p.shape)
     d2 = p - lpos
     tm = jnp.full(o2.shape[:2], 1.0 - 1e-3, jnp.float32)
-    w2, c2, _, _ = cull_clusters_sorted2(accel, o2, d2, tm, k)
-    occ0, x0, _ = any_hit_tiles_graded(o2, d2, tm, accel, w2, c2, nt, nt,
-                                       interpret=True)
-    occ1, x1, _ = any_hit_tiles_graded(o2, d2, tm, accel, w2, c2, nt, nt,
-                                       interpret=True, shared_o=True)
-    assert int(x0) == int(x1) == 0
+    w2, c2, x0, _ = cull_clusters_sorted2(accel, o2, d2, tm, k)
+    assert int(x0) == 0
+    occ0 = occlude_walk(o2, d2, tm, accel, w2, c2, interpret=True)
+    occ1 = occlude_walk(o2, d2, tm, accel, w2, c2, origin=lpos,
+                        interpret=True)
     np.testing.assert_array_equal(np.asarray(occ0), np.asarray(occ1))
     assert float(np.asarray(occ1).mean()) > 0.0

@@ -1,6 +1,6 @@
-"""tracer — a TPU-native differentiable ray tracing framework.
+"""tracer — a differentiable ray tracing framework in JAX.
 
-Built from scratch as the TPU-first counterpart of the reference real-time
+Built from scratch as the wavefront counterpart of the reference real-time
 OpenCL ray tracer (`itmanager85/real-time-opencl-raytracer`; capability spec
 in BASELINE.json / SURVEY.md — the reference mount was empty, so parity is
 against the binding capability list: camera ray generation, BVH-accelerated
@@ -9,7 +9,8 @@ Moller-Trumbore intersection, shading/shadow rays, scene loading).
 Layer map (SURVEY.md section 1.2):
   core/    - math + geometry primitives (rays, camera, intersection)
   bvh/     - on-device LBVH / triangle-cluster acceleration structure
-  kernels/ - Pallas (Mosaic) TPU kernels for the hot traversal loop
+  kernels/ - the traversal hot loop: the sorted walk (a Pallas Triton
+             kernel on the GPU, plain XLA on the CPU) and the jnp tier
   render/  - Whitted-style light transport (shading, shadow rays, bounces)
   diff/    - differentiable rendering (custom VJPs, edge reparameterization)
   dist/    - multi-chip / multi-host sharding (mesh, tile DP, ring geometry)

@@ -1,22 +1,23 @@
-"""Cluster acceleration structure — the TPU-native 'BVH leaf level'.
+"""Cluster acceleration structure — the wavefront 'BVH leaf level'.
 
 Reference parity: the reference builds a pointer-flattened BVH on the CPU and
 traverses it per-ray with a divergent stack in the OpenCL kernel (SURVEY.md
-R3/R5). Per-ray pointer chasing is the worst possible TPU access pattern, so
-the TPU-first structure is different:
+R3/R5). Per-ray pointer chasing diverges across a wavefront of rays, so
+this structure is different:
 
   * triangles are sorted by morton code of their AABB centroid (on-device,
     `jax.lax.sort`-backed argsort) and grouped into fixed-size clusters of
-    C=128 (one VPU lane row) — spatially coherent, contiguous in memory;
+    C=128 — spatially coherent, contiguous in memory;
   * each cluster gets an AABB; a second level of supercluster AABBs (groups
     of 16) supports hierarchical culling;
   * per-cluster intersection data is precompiled into a (4, 3C) matrix so a
     whole ray-block x cluster test is two dense (TR,4)x(4,3C) products with a
-    field-major layout (cols [0:C)=plane, [C:2C)=bary-u, [2C:3C)=bary-v) —
-    every slice lane-aligned for the VPU.
+    field-major layout (cols [0:C)=plane, [C:2C)=bary-u, [2C:3C)=bary-v),
+    so each plane is a contiguous C-wide slice.
 
 Traversal then is: cull cluster AABBs against coherent ray tiles (bvh.cull)
--> dense per-(tile, candidate-cluster) intersection (kernels.traversal).
+-> dense per-(tile, candidate-cluster) intersection (kernels.walk, and the
+jnp tier in kernels.traversal).
 The classic per-ray LBVH (Karras topology + stack traversal) also exists in
 bvh.lbvh as the reference/mid-tier path.
 

@@ -1,6 +1,6 @@
 """Tile-frustum vs cluster-AABB culling (conservative, branch-free).
 
-The TPU-native replacement for per-ray BVH descent at the top of the tree:
+The replacement for per-ray BVH descent at the top of the tree:
 rays are grouped into coherent tiles; each tile is summarized by interval
 bounds on origins and directions; a cluster survives culling iff SOME ray in
 those intervals can hit its AABB within [0, t_max]. The test is interval
@@ -87,7 +87,7 @@ def frustum_aabb_entry(o_lo, o_hi, d_lo, d_hi, box_lo, box_hi, t_max):
     """Like frustum_aabb_feasible but also returns the conservative entry
     distance t_lo (a lower bound on the t at which ANY ray in the tile's
     interval hull can first touch the AABB). Used for front-to-back candidate
-    ordering + early termination (kernels.traversal2)."""
+    ordering + early termination (kernels.walk)."""
     t_lo = jnp.zeros(jnp.broadcast_shapes(o_lo[..., 0].shape, box_lo[..., 0].shape))
     t_hi = jnp.broadcast_to(t_max, t_lo.shape)
     ok = jnp.ones(t_lo.shape, bool)
@@ -156,29 +156,18 @@ def _tile_tmax(t_max):
     return jnp.asarray(t_max)[None, None] if jnp.ndim(t_max) == 0 else t_max
 
 
-# Stage-2 supercluster width of the non-heavy tile region when the cull's
-# s_ultra tier is active, and the threshold `need_s_mid` is measured against.
-S_MID = 24
-
-
 def cull_clusters_sorted2(accel, o: jax.Array, d: jax.Array, t_max,
-                          k_cap: int, s_cap: int = 16,
-                          bf16_fetch: bool = True,
-                          s_ultra: tuple[int, int] | None = None):
+                          k_cap: int, s_cap: int = 16):
     """Two-stage front-to-back cull: superclusters first, then only the
     survivors' clusters. Contract of cull_clusters_sorted plus a fourth
-    return `need = (need_k, need_s, need_s_mid)`: the max over tiles of
-    the UNCLIPPED cluster/supercluster candidate counts — what
-    k_cap/s_cap would have to be for this pass to be exact — plus the
-    tile count exceeding S_MID superclusters (what an s_ultra split must
-    cover). The API's cap auto-sizing reads these (VERDICT r3 weak #8:
-    count-driven cap choice).
+    return `need = (need_k, need_s)`: the max over tiles of the UNCLIPPED
+    cluster/supercluster candidate counts — what k_cap/s_cap would have to
+    be for this pass to be exact. The API's cap sizing reads these.
 
-    Why: the single-stage cull's per-tile sort is (Ntiles, Ncl) wide — at
-    100k tris (Ncl ~ 800) the sort alone was ~13 ms/frame x2 passes. Stage
-    1 tests/sorts the ~Ncl/16 superclusters, keeps the nearest `s_cap` per
-    tile, and stage 2 re-tests only their s_cap*SUPER_FACTOR clusters, so
-    the expensive sort shrinks ~3x in width. The supercluster AABB contains
+    Why: the single-stage cull's per-tile sort is (Ntiles, Ncl) wide.
+    Stage 1 tests/sorts the ~Ncl/16 superclusters, keeps the nearest
+    `s_cap` per tile, and stage 2 re-tests only their s_cap*SUPER_FACTOR
+    clusters, so the sort shrinks in width. The supercluster AABB contains
     its clusters' AABBs and the interval feasibility test is monotone in
     the box, so a cluster passes the dense test iff it passes both stages —
     the two-stage result is IDENTICAL to cull_clusters_sorted whenever no
@@ -186,11 +175,9 @@ def cull_clusters_sorted2(accel, o: jax.Array, d: jax.Array, t_max,
     are counted into `excess` (>=1 cluster each), preserving the
     'excess == 0 means exact' contract.
 
-    The per-tile cluster-AABB fetch is a one-hot matmul (MXU) rather than a
-    gather: XLA's row gather on TPU measured ~25 GB/s while the equivalent
-    (Ntiles, S, Nsc) x (Nsc, SUPER_FACTOR*8) one-hot product is negligible.
-    precision=HIGHEST keeps the fetched bounds bit-exact (bf16 rounding of
-    an AABB could cull a real hit).
+    Stage 2 fetches the surviving superclusters' cluster boxes with a row
+    gather of an exact f32 table (on the H100 it measured faster than a
+    bf16 one-hot product, PERF.md, and needs no outward rounding).
     """
     from tracer.bvh.cluster import SUPER_FACTOR
 
@@ -202,8 +189,7 @@ def cull_clusters_sorted2(accel, o: jax.Array, d: jax.Array, t_max,
         # supercluster whose SUPER_FACTOR clusters all fit): excess is
         # structurally 0 and the needs are moot.
         words, counts, excess = cull_clusters_sorted(accel, o, d, t_max, k_cap)
-        return words, counts, excess, (jnp.int32(0), jnp.int32(0),
-                                       jnp.int32(0))
+        return words, counts, excess, (jnp.int32(0), jnp.int32(0))
     o_lo, o_hi, d_lo, d_hi = tile_bounds(o, d)
     n_tiles = o_lo.shape[0]
     t_max_tile = jnp.broadcast_to(_tile_tmax(t_max), (n_tiles, 1))
@@ -216,130 +202,52 @@ def cull_clusters_sorted2(accel, o: jax.Array, d: jax.Array, t_max,
     sc_ids = jnp.arange(n_sc, dtype=jnp.int32)[None, :]
     words_s1 = jnp.sort(pack_candidates(t_s, sc_ids, ok_s), axis=1)
 
-    # One-hot MXU fetch of the survivors' cluster AABBs. Default
-    # (bf16_fetch): the table is OUTWARD-ROUNDED bf16 — lo shifted down
-    # (hi up) by > one bf16 ulp before the cast, so the bf16 box strictly
-    # contains the f32 box and the interval test stays conservative, while
-    # the fetched intermediate — the largest materialization of the pass,
-    # (Ntiles, S, F*6) — halves in bytes and the one-hot product runs as a
-    # single MXU pass (a one-hot row times exact-bf16 values is reproduced
-    # exactly at any precision). Box growth is ~0.4%/side -> <1% extra
-    # candidates (the cull is ~1% from brute-force-true already).
-    # bf16_fetch=False keeps the bit-exact f32 fetch (precision=HIGHEST:
-    # bf16 rounding of an un-shifted AABB could cull a real hit) — the
-    # mode the two-stage == dense equality proof runs in.
-    # Padding clusters (shorter last supercluster) get lo > hi finite
-    # sentinels: infeasible by construction, NaN-safe in the matmul.
+    # Per-supercluster table of its clusters' boxes, (Nsc, F*6). Padding
+    # clusters (shorter last supercluster) get lo > hi finite sentinels:
+    # infeasible by construction.
     big = jnp.float32(3e37)
-    if bf16_fetch:
-        ftype = jnp.bfloat16
-        outward = lambda x, s: (x + s * (jnp.abs(x) * 4e-3 + 1e-30)
-                                ).astype(ftype)
-        prec = None
-    else:
-        ftype = jnp.float32
-        outward = lambda x, s: x
-        prec = jax.lax.Precision.HIGHEST
     lo_t = jnp.concatenate(
-        [outward(accel.cluster_lo, -1.0),
-         jnp.full((n_sc * F - n_cl, 3), big, ftype)])
+        [accel.cluster_lo, jnp.full((n_sc * F - n_cl, 3), big)])
     hi_t = jnp.concatenate(
-        [outward(accel.cluster_hi, 1.0),
-         jnp.full((n_sc * F - n_cl, 3), -big, ftype)])
+        [accel.cluster_hi, jnp.full((n_sc * F - n_cl, 3), -big)])
     table = jnp.concatenate([lo_t.reshape(n_sc, F, 3),
                              hi_t.reshape(n_sc, F, 3)], axis=-1)
     table = table.reshape(n_sc, F * 6)
     k = min(k_cap, n_cl)
+    S = min(s_cap, n_sc)
 
-    def stage2(ws1, sup_counts_r, bnds, tmax_r, S):
-        """Stage 2 over a tile slice at supercluster width S -> packed,
-        sorted, k_cap-padded words + counts + supercluster excess."""
-        olo, ohi, dlo, dhi = bnds
-        words_s = ws1[:, :S]
-        sid = jnp.minimum(words_s & _CL_MASK, n_sc - 1)
-        slot_ok = (jnp.arange(S, dtype=jnp.int32)[None, :]
-                   < jnp.minimum(sup_counts_r, S)[:, None])
-        # Each supercluster dropped past S hides >= 1 feasible cluster.
-        sup_excess = jnp.sum(jnp.maximum(sup_counts_r - S, 0))
-        onehot = (sid[..., None] == sc_ids[None]).astype(ftype)
-        onehot = jnp.where(slot_ok[..., None], onehot,
-                           ftype(0.0))  # (Nt_r, S, Nsc)
-        fetched = jax.lax.dot_general(
-            onehot, table, (((2,), (0,)), ((), ())),
-            precision=prec, preferred_element_type=ftype)  # (Nt_r, S, F*6)
-        fetched = fetched.reshape(-1, S, F, 6)
-        # Invalid slots fetched all-zero rows (lo == hi == 0): a
-        # degenerate box at the origin IS feasible for rays near it, so
-        # force lo > hi there.
-        box_lo = jnp.where(slot_ok[..., None, None], fetched[..., 0:3],
-                           ftype(big)).astype(jnp.float32)
-        box_hi = jnp.where(slot_ok[..., None, None], fetched[..., 3:6],
-                           ftype(-big)).astype(jnp.float32)
-        ok2, t2 = frustum_aabb_entry(
-            olo[:, None, None], ohi[:, None, None],
-            dlo[:, None, None], dhi[:, None, None],
-            box_lo, box_hi, tmax_r[..., None])
-        cl_ids = jnp.minimum(sid[..., None] * F
-                             + jnp.arange(F, dtype=jnp.int32)[None, None, :],
-                             n_cl - 1)
-        ok2 = ok2.reshape(-1, S * F)
-        words = pack_candidates(t2.reshape(-1, S * F),
-                                cl_ids.reshape(-1, S * F), ok2)
-        words = jnp.sort(words, axis=1)
-        counts = jnp.sum(ok2, axis=1).astype(jnp.int32)
-        words = words[:, :min(k, S * F)]
-        if words.shape[1] < k_cap:
-            pad = jnp.full((words.shape[0], k_cap - words.shape[1]),
-                           WORD_INVALID, jnp.int32)
-            words = jnp.concatenate([words, pad], axis=1)
-        return words, counts, sup_excess
-
-    bounds = (o_lo, o_hi, d_lo, d_hi)
-    # need_s_mid: tiles whose stage-1 count exceeds the fixed S_MID — what
-    # the s_ultra split would have to cover (measured against the
-    # constant, like the kernels' ULTRA_K).
-    need_s_mid = jnp.sum(sup_counts > S_MID)
-    if s_ultra is not None and min(s_cap, n_sc) > s_ultra[1]:
-        # s_ultra = (U, s_mid): the U tiles with the most feasible
-        # superclusters run stage 2 at full s_cap width; the rest at
-        # s_mid. Same measure-escalate contract as the kernels' ultra-k:
-        # a region-B tile with sup_count > s_mid is surfaced via excess
-        # (>= 1 hidden cluster each), and the sizing loop widens U. This
-        # is what keeps the stage-2 sort narrow when a few grazing tiles
-        # force s_cap into the hundreds (sponza: s=121 -> width 1936 for
-        # every tile; the sort dominated the frame).
-        U, s_mid = s_ultra
-        U = max(0, min(int(U), n_tiles))
-        order = jnp.argsort(-sup_counts).astype(jnp.int32)
-        inv = jnp.argsort(order).astype(jnp.int32)
-        ws1_s = words_s1[order]
-        sup_s = sup_counts[order]
-        bnds_s = tuple(b[order] for b in bounds)
-        tmax_s = t_max_tile[order]
-        parts_w, parts_c, sup_excess = [], [], jnp.int32(0)
-        if U > 0:
-            wA, cA, eA = stage2(ws1_s[:U], sup_s[:U],
-                                tuple(b[:U] for b in bnds_s), tmax_s[:U],
-                                min(s_cap, n_sc))
-            parts_w.append(wA)
-            parts_c.append(cA)
-            sup_excess = sup_excess + eA
-        if n_tiles > U:
-            wB, cB, eB = stage2(ws1_s[U:], sup_s[U:],
-                                tuple(b[U:] for b in bnds_s), tmax_s[U:],
-                                min(s_mid, n_sc))
-            parts_w.append(wB)
-            parts_c.append(cB)
-            sup_excess = sup_excess + eB
-        words = jnp.concatenate(parts_w)[inv]
-        counts = jnp.concatenate(parts_c)[inv]
-    else:
-        words, counts, sup_excess = stage2(words_s1, sup_counts, bounds,
-                                           t_max_tile, min(s_cap, n_sc))
+    words_s = words_s1[:, :S]
+    sid = jnp.minimum(words_s & _CL_MASK, n_sc - 1)
+    slot_ok = (jnp.arange(S, dtype=jnp.int32)[None, :]
+               < jnp.minimum(sup_counts, S)[:, None])
+    # Each supercluster dropped past S hides >= 1 feasible cluster.
+    sup_excess = jnp.sum(jnp.maximum(sup_counts - S, 0))
+    fetched = table[sid].reshape(-1, S, F, 6)  # (Ntiles, S, F, 6)
+    # Invalid slots: force lo > hi (a fetched box of a clamped id would
+    # otherwise be feasible).
+    box_lo = jnp.where(slot_ok[..., None, None], fetched[..., 0:3], big)
+    box_hi = jnp.where(slot_ok[..., None, None], fetched[..., 3:6], -big)
+    ok2, t2 = frustum_aabb_entry(
+        o_lo[:, None, None], o_hi[:, None, None],
+        d_lo[:, None, None], d_hi[:, None, None],
+        box_lo, box_hi, t_max_tile[..., None])
+    cl_ids = jnp.minimum(sid[..., None] * F
+                         + jnp.arange(F, dtype=jnp.int32)[None, None, :],
+                         n_cl - 1)
+    ok2 = ok2.reshape(-1, S * F)
+    words = pack_candidates(t2.reshape(-1, S * F),
+                            cl_ids.reshape(-1, S * F), ok2)
+    words = jnp.sort(words, axis=1)
+    counts = jnp.sum(ok2, axis=1).astype(jnp.int32)
+    words = words[:, :min(k, S * F)]
+    if words.shape[1] < k_cap:
+        pad = jnp.full((words.shape[0], k_cap - words.shape[1]),
+                       WORD_INVALID, jnp.int32)
+        words = jnp.concatenate([words, pad], axis=1)
     excess = jnp.sum(jnp.maximum(counts - k, 0)) + sup_excess
     # need_k is a lower bound when superclusters overflowed (the dropped
     # ones' clusters were never tested); the sizing loop iterates.
-    need = (jnp.max(counts), jnp.max(sup_counts), need_s_mid)
+    need = (jnp.max(counts), jnp.max(sup_counts))
     return words, jnp.minimum(counts, k_cap), excess, need
 
 

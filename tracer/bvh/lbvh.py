@@ -3,7 +3,7 @@
 Reference parity: the OpenCL reference builds its BVH on the CPU at scene
 load and flattens it to an int-indexed node array for the kernel to traverse
 (SURVEY.md R3/R5; BASELINE capability "BVH-accelerated ray-triangle
-intersection" and "flattened LBVH"). The TPU-native redesign builds the tree
+intersection" and "flattened LBVH"). This redesign builds the tree
 *on device inside jit* so geometry edits (the differentiable path) never
 bounce through the host:
 
@@ -16,8 +16,8 @@ bounce through the host:
 
 This is the classic per-ray BVH tier: `trace_rays_lbvh` does batched
 stack-based traversal (dense masked lanes under `lax.while_loop`). The
-high-throughput TPU path remains the cluster accel + Pallas wavefront
-kernels (bvh.cluster, kernels.traversal); the LBVH tier exists for parity,
+high-throughput path remains the cluster accel + sorted walk
+(bvh.cluster, kernels.walk); the LBVH tier exists for parity,
 for gather-friendly backends, and as an independent correctness oracle.
 
 Node indexing convention: one unified array of 2N-1 nodes — internal nodes

@@ -2,7 +2,7 @@
 
 Used to sort triangles into spatially coherent order for both the cluster
 acceleration structure (bvh.cluster) and the Karras LBVH (bvh.lbvh).
-SURVEY.md §3.2 F: 30-bit codes, bit-interleave via shifts (VPU-friendly).
+SURVEY.md §3.2 F: 30-bit codes, bit-interleave via shifts (branch-free vector ops).
 """
 from __future__ import annotations
 

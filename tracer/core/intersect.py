@@ -4,9 +4,9 @@ Reference parity: the OpenCL reference implements classic Moller-Trumbore per
 (work-item ray, leaf triangle) with scalar branching (SURVEY.md R2,
 BASELINE capability "BVH-accelerated ray-triangle intersection using
 Moller-Trumbore"). That formulation is branchy and gather-heavy — a poor fit
-for the TPU's dense MXU/VPU model.
+for dense wavefront execution.
 
-TPU-first redesign: triangles are *precompiled* into per-triangle affine maps
+Redesign: triangles are *precompiled* into per-triangle affine maps
 (a 3x4 matrix each, the Baldwin-Weber form of Moller-Trumbore). With
 
     W[k] = [[ n | -n.v0 ],          n  = e1 x e2        (plane row)
@@ -23,8 +23,8 @@ followed by cheap elementwise math:
     t = -So_n / Sd_n ;  u = So_u + t*Sd_u ;  v = So_v + t*Sd_v
     hit = (u>=0) & (v>=0) & (u+v<=1) & (t_min < t < t_max)
 
-i.e. the hot inner loop is MXU systolic-array work on fp32, with the VPU doing
-the epilogue — exactly what the hardware wants. This computes the same
+i.e. the brute tier's inner loop is two fp32 matrix products plus an
+elementwise epilogue. This computes the same
 (t, u, v, hit) as Moller-Trumbore (proved equal in tests/unit/test_intersect.py).
 """
 from __future__ import annotations
@@ -109,7 +109,7 @@ def intersect_packed(
     t_max: float = T_FAR,
     eps: float = 1e-12,
 ):
-    """Dense R rays x T triangles intersection via two MXU matmuls.
+    """Dense R rays x T triangles intersection via two matrix products.
 
     o4, d4: (R, 4) homogeneous rays (Ray.homogeneous()).
     tri_maps: (T, 3, 4) from triangle_affine_maps.
@@ -117,10 +117,10 @@ def intersect_packed(
     """
     T = tri_maps.shape[0]
     w = tri_maps.reshape(T * 3, 4)
-    # precision=HIGHEST: on TPU the MXU multiplies fp32 inputs as bf16 by
-    # default (~4e-3 relative error) which breaks hit classification (t is
-    # compared against eps-scale bounds -> spurious self-shadowing). HIGHEST
-    # runs the 6-pass fp32-exact MXU mode — still systolic-array work.
+    # precision=HIGHEST: true fp32 products. On the GPU the default lets
+    # the tensor cores round fp32 inputs to TF32 (~1e-3 relative error),
+    # which breaks hit classification (t is compared against eps-scale
+    # bounds -> spurious self-shadowing).
     so = jax.lax.dot_general(
         o4, w, (((1,), (1,)), ((), ())),
         preferred_element_type=jnp.float32, precision=jax.lax.Precision.HIGHEST,
@@ -163,7 +163,7 @@ def intersect_brute(
     t_max: float = T_FAR,
 ) -> Hit:
     """All-rays x all-triangles brute force (BASELINE config 1: Cornell box,
-    no BVH). Flattens the ray batch, runs the packed MXU path, reduces to the
+    no BVH). Flattens the ray batch, runs the packed matmul path, reduces to the
     nearest hit, and restores the batch shape.
 
     Differentiating through this function backpropagates the dense (R x T)

@@ -1,9 +1,9 @@
 """Core pytree types: SoA ray batches and hit records.
 
 Reference parity: the OpenCL reference carries per-work-item `struct Ray`
-and hit info in registers (SURVEY.md R1/R2). The TPU-native design is
+and hit info in registers (SURVEY.md R1/R2). This design is
 structure-of-arrays over a whole wavefront of rays so every field is a dense
-(N, ...) array amenable to VPU/MXU work.
+(N, ...) array amenable to vectorized work.
 """
 from __future__ import annotations
 

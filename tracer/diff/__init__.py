@@ -3,7 +3,7 @@
 `edge` — edge-aware visibility gradients: straight-through smoothed-indicator
 reparameterization of shadow occlusion and primary coverage (exact forward
 images, silhouette-aware backward). `fit` — checkpointed inverse-rendering
-optimization loops (orbax).
+optimization loops (atomic .npz checkpoints).
 """
 from tracer.diff.edge import (
     render_diff,

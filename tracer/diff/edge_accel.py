@@ -163,7 +163,7 @@ def render_diff_accel(scene, ray: Ray, cfg: WhittedConfig, edge_eps: float = 1e-
 
     accel = build_clusters(scene.verts, scene.tris,
                            cluster_size or CLUSTER_SIZE, scene=scene)
-    trace_fn, occlude_fn = make_accel_tracers(scene, accel, use_pallas=False)
+    trace_fn, occlude_fn = make_accel_tracers(scene, accel)
 
     sky = jnp.asarray(cfg.sky_color, jnp.float32)
     radiance = jnp.zeros(ray.batch_shape + (3,), jnp.float32)

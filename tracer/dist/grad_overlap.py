@@ -1,7 +1,7 @@
 """Bucketed gradient all-reduce overlapped with the tile backward (T12).
 
 Reference parity: the OpenCL reference has no training loop and no
-multi-device communication at all (SURVEY.md §2.1); this is new TPU-native
+multi-device communication at all (SURVEY.md §2.1); this is new
 scope mandated by BASELINE config 5 ("overlapped gradient all-reduce").
 
 Mechanism. The image rows owned by each chip are split into B buckets; each
@@ -9,10 +9,10 @@ bucket's backward pass produces a partial parameter gradient which is
 `psum`-ed over the data axis IMMEDIATELY, instead of one monolithic psum of
 the full gradient at the end. The per-bucket psums are mutually independent
 of the other buckets' forward+backward compute, so XLA's async collectives
-and latency-hiding scheduler run bucket b's all-reduce on the ICI/DCN links
-while bucket b+1's backward occupies the compute units — the TPU-native
-equivalent of gradient-bucketing in NCCL-based DDP stacks, with the
-scheduling done by the compiler rather than a comm thread.
+and latency-hiding scheduler run bucket b's all-reduce (NCCL over NVLink)
+while bucket b+1's backward occupies the compute units — the equivalent of
+gradient-bucketing in DDP stacks, with the scheduling done by the
+compiler rather than a comm thread.
 
 Numerics: sum over buckets of psum(bucket-grad) == psum(full grad) exactly
 up to fp reassociation; tests/dist/test_grad_overlap.py asserts bucketed ==

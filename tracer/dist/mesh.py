@@ -1,7 +1,7 @@
 """Device mesh setup (SURVEY.md T9).
 
 Reference parity: the reference is single-GPU with no distribution; all
-multi-device capability is new TPU-native scope. The mesh is 2D
+multi-device capability is new scope. The mesh is 2D
 ('data', 'geom'): tiles/rays are sharded over 'data' (T10) and scene
 geometry over 'geom' for the ring pass (T11). Multi-host bootstrap uses
 jax.distributed.initialize (T9/E in SURVEY.md §3.2).
@@ -34,8 +34,9 @@ def make_render_mesh(devices=None, data: int | None = None, geom: int = 1) -> ja
 def init_multihost(coordinator: str, num_processes: int, process_id: int) -> None:
     """Multi-host process-group bootstrap (one python process per host).
 
-    XLA collectives then ride ICI within a slice and DCN across hosts —
-    the TPU-native replacement for a NCCL/MPI backend (SURVEY.md T13, §5).
+    XLA lowers the collectives to NCCL: over NVLink between the cards of
+    a host (all to all, so the mesh shape follows the algorithm alone) and
+    over the network between hosts (SURVEY.md T13, §5).
     """
     jax.distributed.initialize(
         coordinator_address=coordinator,

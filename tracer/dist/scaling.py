@@ -5,11 +5,10 @@ Measures the PRODUCTION tile-DP path (dist.ray_dp.make_sharded_accel_render_fn
 — shard_map over a data mesh, each device generating and tracing only its
 row band) on 1, 2, ..., N of whatever devices the process sees, and emits
 one row per device count with measured rays/s and efficiency vs the
-1-device base. On pod hardware this produces the BASELINE scaling table by
-running one command (`python bench.py --scaling`); on a CPU mesh the same
-harness runs end to end but the timings are not hardware-meaningful (the
-caller labels them `cpu-mesh`); on the single-chip bench environment the
-multi-chip rows cannot be measured and stay pending.
+1-device base. On a multi-card host this produces the BASELINE scaling
+table by running one command (`python bench.py --scaling`); on a CPU mesh
+the same harness runs end to end (tests) but its timings describe no
+device.
 """
 from __future__ import annotations
 

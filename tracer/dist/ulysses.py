@@ -13,8 +13,8 @@ holds one contiguous morton range of the global wavefront.
 
 Mechanics (inside shard_map, axis size n, R local rays):
   1. sort local rays by 30-bit morton key of the position the caller picks
-     (multi-operand `lax.sort` — measured ~5x cheaper than argsort+gather
-     on TPU, PERF_NOTES.md);
+     (one multi-operand `lax.sort` carries the payload with the keys, no
+     argsort + gather);
   2. split the sorted block into n equal contiguous chunks and exchange
      chunk j with device j (`lax.all_to_all`): device j ends up holding
      every device's j-th morton quantile — a coherent slice of the GLOBAL

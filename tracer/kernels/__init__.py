@@ -3,10 +3,7 @@ from tracer.kernels.traversal import (
     tile_rays,
     untile,
     trace_tiles_jnp,
-    trace_tiles_pallas,
     any_hit_tiles_jnp,
-    any_hit_tiles_pallas,
-    build_worklist,
 )
 
 __all__ = [
@@ -14,8 +11,5 @@ __all__ = [
     "tile_rays",
     "untile",
     "trace_tiles_jnp",
-    "trace_tiles_pallas",
     "any_hit_tiles_jnp",
-    "any_hit_tiles_pallas",
-    "build_worklist",
 ]

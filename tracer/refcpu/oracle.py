@@ -2,8 +2,8 @@
 
 Reference parity: SURVEY.md L7/T8. This is deliberately written as a classic
 scalar-style path tracer (vectorized only over triangles per pixel) using
-textbook Moller-Trumbore — a different algorithm/code path from the TPU
-framework's precompiled-affine-map MXU formulation — so agreement between the
+textbook Moller-Trumbore — a different algorithm/code path from the
+framework's precompiled-affine-map formulation — so agreement between the
 two is meaningful evidence of correctness (images + gradients allclose,
 rtol 1e-3 per BASELINE). A C++ version (cpp/oracle.cpp) accelerates this for
 large scenes; this numpy file is the always-available fallback and the

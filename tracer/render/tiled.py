@@ -1,21 +1,22 @@
-"""Tile-resident Whitted integrator — the v2 fast path.
+"""Tile-resident Whitted integrator — the main render path.
 
 Reference parity: same light transport as render.whitted (the OpenCL
 reference's shade + shadow + mirror-bounce kernel, SURVEY.md R4), but the
-whole pipeline stays in the kernel's tiled (Ntiles, TR) layout from primary
+whole pipeline stays in the walk's tiled (Ntiles, TR) layout from primary
 rays to the final image, and all per-hit data comes from ONE wide gather of
 the packed shade table (bvh.cluster.SHADE_COLS layout) indexed by the
-traversal kernel's sorted-slot id:
+walk's sorted-slot id:
 
   * no (H, W) <-> tile transposes between passes (one untile at the end);
   * no chained narrow gathers (tris -> verts -> normals -> materials);
-  * the Pallas kernel is used for SELECTION only (which triangle, conservative
-    t); hit attributes (t, u, v, normal, position) are recomputed outside the
-    kernel from the gathered rows. The recompute is differentiable w.r.t.
-    vertices / normals / materials / camera, so `jax.grad` flows through this
-    integrator without a custom VJP on the kernel — the kernel sees only
-    stop-gradiented inputs (discrete selection is piecewise constant; edge
-    terms are handled by tracer.diff's reparameterization).
+  * the walk (kernels.walk) is used for SELECTION only (which triangle,
+    conservative t); hit attributes (t, u, v, normal, position) are
+    recomputed outside it from the gathered rows. The recompute is
+    differentiable w.r.t. vertices / normals / materials / camera, so
+    `jax.grad` flows through this integrator without a custom VJP on the
+    walk — the walk sees only stop-gradiented inputs (discrete selection is
+    piecewise constant; edge terms are handled by tracer.diff's
+    reparameterization).
 """
 from __future__ import annotations
 
@@ -28,10 +29,8 @@ from tracer.bvh.cluster import ClusterAccel
 from tracer.bvh.cull import cull_clusters_sorted2
 from tracer.core.camera import Camera
 from tracer.core.types import Ray, T_FAR, RAY_EPS, normalize
-from tracer.kernels.traversal import untile, generate_rays_tiled
-from tracer.kernels.traversal2 import (
-    trace_tiles_split, any_hit_tiles_sorted, any_hit_tiles_graded, DEFAULT_K,
-    T_MIN)
+from tracer.kernels.traversal import T_MIN, untile, generate_rays_tiled
+from tracer.kernels.walk import occlude_walk, trace_walk
 from tracer.render.whitted import WhittedConfig, phong_specular
 
 
@@ -59,124 +58,88 @@ def mt_from_edges(o, d, v0, e1, e2, t_min=T_MIN, eps=1e-12, bary_eps=1e-5):
     return t, u, v, hit
 
 
-def _trace_rows(accel: ClusterAccel, o_t, d_t, k_cap, s_cap, split,
-                interpret, ultra=None, s_ultra=None, shared_o=False):
-    """Kernel selection pass -> (gid, rows, excess, need, split_need). All
-    kernel inputs are stop-gradiented; gradients flow through the row
-    recompute instead. `split` = (generic, nonzero) static tile partition
-    for the three-tier closest pass (trace_tiles_split); `ultra` =
-    (ultra_split, k_mid) activates the full-width fourth tier for scenes
-    whose heaviest tiles force k_cap far past ULTRA_K."""
+def _trace_rows(accel: ClusterAccel, o_t, d_t, k_cap, s_cap, interpret,
+                origin=None):
+    """Walk selection pass -> (gid, rows, excess, need). All walk inputs
+    are stop-gradiented; gradients flow through the row recompute
+    instead. `origin`: the pass's single shared ray origin, if any."""
     sg = jax.lax.stop_gradient
     accel_sg = sg(accel)
     words, counts, excess, need = cull_clusters_sorted2(
-        accel_sg, sg(o_t), sg(d_t), T_FAR, k_cap, s_cap, s_ultra=s_ultra)
-    u_split, k_mid = ultra if ultra is not None else (0, None)
-    _bt, gid, t_excess, split_need = trace_tiles_split(
-        sg(o_t), sg(d_t), accel_sg, words, counts, split[0], split[1],
-        interpret=interpret, ultra_split=u_split, k_mid=k_mid,
-        shared_o=shared_o)
-    # Gather from 128-lane rows: XLA's TPU row gather runs ~25% faster on
-    # full-vreg rows than on the packed 32-col table (measured 8.7 -> 6.9
-    # ms at 1080p), worth the transient 4x padded copy (XLA CSEs it across
-    # bounces). Downstream consumers slice cols < SHADE_COLS only.
-    # (r5: 64- and 32-col padded gathers measured 83-85 ms full-frame vs
-    # 83-84 at 128 — within run noise; 128 kept for the r4-measured
-    # standalone win.)
-    shade_pad = jnp.pad(accel.shade,
-                        ((0, 0), (0, 128 - accel.shade.shape[1])))
-    rows = shade_pad[jnp.maximum(gid, 0)]  # (Nt, TR, 128)
-    return gid, rows, excess + t_excess, need, split_need
+        accel_sg, sg(o_t), sg(d_t), T_FAR, k_cap, s_cap)
+    _bt, gid = trace_walk(
+        sg(o_t), sg(d_t), accel_sg, words, counts,
+        origin=None if origin is None else sg(origin), interpret=interpret)
+    # One gather of the packed SHADE_COLS-wide rows (padding them to 128
+    # columns first measured no faster on the H100, PERF.md).
+    rows = accel.shade[jnp.maximum(gid, 0)]  # (Nt, TR, SHADE_COLS)
+    return gid, rows, excess, need
 
 
 def _segment_occluded(accel: ClusterAccel, light_pos, p_t, eps_t, k_cap,
-                      s_cap, split, interpret, ultra=None, s_ultra=None):
+                      s_cap, interpret):
     """Occlusion of the segment light<->p, traced FROM THE LIGHT.
 
     Shadow rays share the light as a common origin, so the per-tile frustum
     is a tight cone (like primary rays from the camera) instead of the fat
-    interval hull a surface-origin wavefront produces. The segment is
-    parameterized o = light, d = p - light, t in (t_min, 1 - eps_rel): the
-    direction is intentionally unnormalized so t_max == 1 uniformly.
-    `eps_t` is the absolute surface offset (RAY_EPS-scale) to exclude the
-    receiving surface itself at t ~ 1.
-
-    NOT re-tiled by target position: morton-sorting the 2M segment targets
-    cuts the shadow candidate mass 34% (mean 5.4 -> 3.5, p99 96 -> 29) but
-    measured net SLOWER end to end — 130 ms/frame with argsort + gathers
-    (XLA row gather ~25 GB/s), still 107 vs 101 ms with gather-free
-    multi-operand lax.sorts: the any-hit kernel's cost is more per-tile
-    than per-candidate, so the saved dense work doesn't repay even a few
-    ms of sorting. See PERF_NOTES.md."""
+    interval hull a surface-origin wavefront produces, and the walk takes
+    the shared-origin products. The segment is parameterized o = light,
+    d = p - light, t in (t_min, 1 - eps_rel): the direction is
+    intentionally unnormalized so t_max == 1 uniformly. `eps_t` is the
+    absolute surface offset (RAY_EPS-scale) to exclude the receiving
+    surface itself at t ~ 1."""
     sg = jax.lax.stop_gradient
     accel_sg = sg(accel)
+    light_pos = sg(light_pos)
     o_t = jnp.broadcast_to(light_pos, p_t.shape)
     d_t = sg(p_t) - light_pos
     seg_len = jnp.sqrt(jnp.maximum(jnp.sum(d_t * d_t, axis=-1), 1e-20))
     t_max_t = 1.0 - eps_t / seg_len
     words, counts, excess, need = cull_clusters_sorted2(
-        accel_sg, o_t, d_t, t_max_t, k_cap, s_cap, s_ultra=s_ultra)
-    u_split, k_mid = ultra if ultra is not None else (0, None)
-    # shared_o: every segment of the pass originates at THE light point
-    # (o_t is a broadcast of light_pos) — the kernels' origin-side products
-    # collapse to one (1, 3C) row, bit-identically (traversal2._products).
-    occ, t_excess, sneed = any_hit_tiles_graded(
-        o_t, d_t, t_max_t, accel_sg, words, counts, split[0], split[1],
-        interpret=interpret, ultra_split=u_split, k_mid=k_mid,
-        shared_o=True)
-    return occ, excess + t_excess, need, sneed
+        accel_sg, o_t, d_t, t_max_t, k_cap, s_cap)
+    occ = occlude_walk(o_t, d_t, t_max_t, accel_sg, words, counts,
+                       origin=light_pos, interpret=interpret)
+    return occ, excess, need
 
 
-# Closest-hit candidate cap: primary/bounce frusta are tight (p99 ~ 24 on
-# the 100k-tri bench scene), so a small cap quadruples the tiles per Pallas
-# launch (SMEM word budget) with overflow surfaced, not silent.
+# Closest-hit candidate cap the sizing loop starts from: primary/bounce
+# frusta are tight, so a small first guess keeps the cull's sort narrow;
+# overflow is surfaced, never silent, and the sizing loop widens the cap.
 K_CLOSEST = 64
+# Shadow-pass candidate cap the sizing loop starts from (light-origin
+# frusta typically need a few times the camera's).
+K_SHADOW = 256
 
 
 # Supercluster cap for the two-stage cull (see bvh.cull); overflow past it
-# is surfaced, and the API's cap auto-sizing escalates it per scene.
+# is surfaced, and the API's cap sizing escalates it per scene.
 S_CAP = 16
 
 
 def render_tiled(scene, accel: ClusterAccel, camera: Camera,
                  height: int, width: int, cfg: WhittedConfig,
-                 k_cap: int = DEFAULT_K, tr: int = 64,
+                 k_cap: int = K_SHADOW, tr: int = 64,
                  interpret: bool = False, with_aux: bool = False,
-                 k_closest: int = K_CLOSEST, s_cap: int = S_CAP,
-                 closest_split: tuple[int, int] | None = None,
-                 shadow_split: tuple[int, int] | None = None,
-                 closest_ultra: tuple[int, int] | None = None,
-                 shadow_ultra: tuple[int, int] | None = None,
-                 s_ultra: tuple[int, int] | None = None):
-    # tr=64 (8x8-pixel tiles): measured 2.4x faster than 16x16 at 1080p —
-    # tighter tile frusta cut candidates/tile 5x (mean 18.3 -> 3.5), which
-    # outweighs the 4x tile count; VPU blocks stay full at (64, 384).
-    """Full-image Whitted render on the v2 kernel path -> (H, W, 3), or
+                 k_closest: int = K_CLOSEST, s_cap: int = S_CAP):
+    """Full-image Whitted render on the sorted-walk path -> (H, W, 3), or
     ((H, W, 3), aux) when with_aux: aux['overflow'] counts cull candidates
-    dropped by the k/s caps (0 == exact)."""
+    dropped by the k/s caps (0 == exact); aux['need_*'] are the caps this
+    frame would need to be exact; aux['live_rays'] counts rays traced.
+
+    tr=64 (8x8-pixel tiles): tighter tile frusta mean fewer candidates per
+    tile than 16x16 tiles, which outweighs the 4x tile count.
+    `interpret=True` runs the walk's Pallas kernel in interpret mode."""
     k = min(k_cap, accel.num_clusters)
     k = max(8, -(-k // 8) * 8)
     kc = min(k_closest, accel.num_clusters)
     kc = max(8, -(-kc // 8) * 8)
     overflow = jnp.int32(0)
     # Max over all passes of the unclipped candidate counts: what the caps
-    # would have to be for this frame to be exact (api cap auto-sizing).
+    # would have to be for this frame to be exact (api cap sizing).
     need_closest = jnp.int32(0)
     need_shadow = jnp.int32(0)
     need_s = jnp.int32(0)
-    need_split = jnp.int32(0)
-    need_zero = jnp.int32(0)
-    need_sh_b1 = jnp.int32(0)
-    need_sh_zero = jnp.int32(0)
-    need_ultra = jnp.int32(0)
-    need_sh_ultra = jnp.int32(0)
-    need_s_mid = jnp.int32(0)
     o_t, d_t, tiling = generate_rays_tiled(camera, height, width, tr)
-    n_tiles = o_t.shape[0]
-    # Default splits = everything in the generic tier (always correct); the
-    # API's sizing pass measures the count distributions and narrows them.
-    split = closest_split if closest_split is not None else (n_tiles, n_tiles)
-    sh_split = shadow_split if shadow_split is not None else (n_tiles, n_tiles)
 
     sky = jnp.asarray(cfg.sky_color, jnp.float32)
     shape = o_t.shape[:2]
@@ -185,30 +148,24 @@ def render_tiled(scene, accel: ClusterAccel, camera: Camera,
     live = jnp.ones(shape, bool)
     # Honest throughput accounting: wavefront slots whose ray is dead
     # (d == 0 — bounce rays of non-mirror pixels, unlit shadow targets)
-    # cost ~nothing (zero tier), so `live_rays` counts only rays actually
-    # traced: per bounce the d != 0 closest wavefront plus each light's
-    # lit shadow segments (VERDICT r4 weak #5).
+    # cost ~nothing (the cull gives them no candidates), so `live_rays`
+    # counts only rays actually traced: per bounce the d != 0 closest
+    # wavefront plus each light's lit shadow segments.
     live_rays = jnp.int32(0)
 
     for bounce in range(cfg.max_bounces):
         live_rays = live_rays + jnp.sum(jnp.any(d_t != 0.0, axis=-1),
                                         dtype=jnp.int32)
         # bounce 0 = primary rays: one exact camera origin for every ray
-        # (generate_rays_tiled broadcasts camera.position), so the kernels
-        # can run the shared-origin product specialization; bounce rays
-        # have per-pixel origins and cannot.
-        gid, rows, exc, need, sneed = _trace_rows(accel, o_t, d_t, kc, s_cap,
-                                                  split, interpret,
-                                                  ultra=closest_ultra,
-                                                  s_ultra=s_ultra,
-                                                  shared_o=(bounce == 0))
+        # (generate_rays_tiled broadcasts camera.position), so the walk
+        # takes the shared-origin products; bounce rays have per-pixel
+        # origins and cannot.
+        gid, rows, exc, need = _trace_rows(
+            accel, o_t, d_t, kc, s_cap, interpret,
+            origin=camera.position if bounce == 0 else None)
         overflow = overflow + exc
         need_closest = jnp.maximum(need_closest, need[0])
         need_s = jnp.maximum(need_s, need[1])
-        need_s_mid = jnp.maximum(need_s_mid, need[2])
-        need_split = jnp.maximum(need_split, sneed[0])
-        need_zero = jnp.maximum(need_zero, sneed[1])
-        need_ultra = jnp.maximum(need_ultra, sneed[2])
         v0 = rows[..., 0:3]
         e1 = rows[..., 3:6]
         e2 = rows[..., 6:9]
@@ -244,20 +201,16 @@ def render_tiled(scene, accel: ClusterAccel, camera: Camera,
             # Rays that can't receive light (miss, or surface back-facing
             # the light) target the light itself: a zero-length segment
             # (d == 0) is ignored by the cull's tile bounds and never hits,
-            # so they don't fatten the shadow frusta or cost kernel work.
+            # so they don't fatten the shadow frusta or cost walk work.
             lit = valid & (cos > 0.0)
             live_rays = live_rays + jnp.sum(lit, dtype=jnp.int32)
             target = jnp.where(lit[..., None], p + n * RAY_EPS, lpos)
-            occ, exc, need, sneed = _segment_occluded(
+            occ, exc, need = _segment_occluded(
                 accel, lpos, target, jnp.float32(RAY_EPS), k, s_cap,
-                sh_split, interpret, ultra=shadow_ultra, s_ultra=s_ultra)
+                interpret)
             overflow = overflow + exc
             need_shadow = jnp.maximum(need_shadow, need[0])
             need_s = jnp.maximum(need_s, need[1])
-            need_s_mid = jnp.maximum(need_s_mid, need[2])
-            need_sh_b1 = jnp.maximum(need_sh_b1, sneed[0])
-            need_sh_zero = jnp.maximum(need_sh_zero, sneed[1])
-            need_sh_ultra = jnp.maximum(need_sh_ultra, sneed[2])
             vis = jnp.where(occ | ~lit, 0.0, 1.0)
             falloff = (vis / jnp.maximum(dist2, 1e-20))[..., None] * lint
             brdf = (albedo / jnp.pi * cos[..., None]
@@ -273,32 +226,17 @@ def render_tiled(scene, accel: ClusterAccel, camera: Camera,
             refl_d = d_t - 2.0 * jnp.sum(d_t * n, axis=-1, keepdims=True) * n
             live = valid & (mirror[..., 0] > 0.0)
             # Dead rays (miss or non-mirror surface) get d = 0: the cull's
-            # tile bounds ignore them and whole-dead tiles land in the
-            # zero tier, so bounce passes cost ~nothing for the (usually
-            # large) non-mirror fraction of the frame. Measured on
-            # sponza1080 (3 bounces): see PERF_NOTES.
+            # tile bounds ignore them and whole-dead tiles get no
+            # candidates, so bounce passes cost little for the (usually
+            # large) non-mirror fraction of the frame.
             m = live[..., None]
             o_t = jnp.where(m, p + n * RAY_EPS, 0.0)
             d_t = jnp.where(m, normalize(refl_d), 0.0)
             throughput = throughput * mirror
 
     img = untile(radiance, tiling)
-    # Fusion shield (measured TPU miscompilation, r5): when a downstream
-    # elementwise op against a CLOSED-OVER array constant (e.g. a loss's
-    # `img - target` with target captured in the jit) is fused into this
-    # untile transpose, the constant is mis-indexed — mean(img) was exact
-    # while mean((img - target)^2) returned 5.1e-3 for target == img
-    # (bunny512, v5e). The barrier pins the image at its materialized
-    # layout before any consumer fusion; identity for values and
-    # gradients, free in practice (the image is usually an output).
-    img = jax.lax.optimization_barrier(img)
     if with_aux:
         return img, {"overflow": overflow, "need_closest": need_closest,
                      "need_shadow": need_shadow, "need_s": need_s,
-                     "need_split": need_split, "need_zero": need_zero,
-                     "need_sh_b1": need_sh_b1, "need_sh_zero": need_sh_zero,
-                     "need_ultra": need_ultra,
-                     "need_sh_ultra": need_sh_ultra,
-                     "need_s_mid": need_s_mid,
                      "live_rays": live_rays}
     return img

@@ -6,11 +6,11 @@ Lambert/Phong direct lighting, casts shadow rays toward the lights, and
 (Whitted-style) follows mirror reflections (SURVEY.md R4, BASELINE capability
 "shading and shadow rays", multi-bounce per BASELINE config 4).
 
-TPU-first structure: the bounce loop is a `lax.scan` of fixed depth over the
-whole ray wavefront; dead rays carry zero throughput instead of exiting
-(dense SPMD, no divergence). Tracing is pluggable: `trace_fn(ray) -> Hit` and
+Wavefront structure: the bounce loop runs at fixed depth over the whole ray
+wavefront; dead rays carry zero throughput instead of exiting (dense SPMD,
+no divergence). Tracing is pluggable: `trace_fn(ray) -> Hit` and
 `occlude_fn(ray, t_max) -> bool` so the same integrator drives the brute
-force path (config 1), the BVH/Pallas path (config 2+), and the sharded
+force path (config 1), the BVH paths (config 2+), and the sharded
 distributed paths.
 """
 from __future__ import annotations
@@ -199,51 +199,6 @@ def render_wavefront(
             scene, ray, throughput, live, cfg, trace_fn, occlude_fn)
         radiance = radiance + contrib
     return radiance
-
-
-def render_wavefront_aux(
-    scene: Scene,
-    ray: Ray,
-    cfg: WhittedConfig,
-    trace_fn_aux,
-    occlude_fn_aux,
-):
-    """render_wavefront with EXCESS-SURFACING tracers, for tiers whose
-    culls can truncate under a candidate cap (the streamed big-scene
-    tier; the tiled path has its own aux plumbing in render/tiled.py).
-
-    trace_fn_aux(ray) -> (Hit, aux) and occlude_fn_aux(ray, t_max) ->
-    (occ, aux), where aux = {"excess": int32, "need_k": int32,
-    "need_s": int32} from the pass's cull. Returns (radiance, aux) with
-    excess summed and the needs max-combined SEPARATELY for the closest
-    ("need_trace_k") and occlusion ("need_occ_k") passes — the sizing
-    loop escalates them independently (light-origin frusta typically need
-    ~2-4x the camera k)."""
-    radiance = jnp.zeros(ray.batch_shape + (3,), jnp.float32)
-    throughput = jnp.ones(ray.batch_shape + (3,), jnp.float32)
-    live = jnp.ones(ray.batch_shape, bool)
-    tot = {"overflow": jnp.int32(0), "need_trace_k": jnp.int32(0),
-           "need_occ_k": jnp.int32(0), "need_s": jnp.int32(0)}
-
-    def trace_fn(r):
-        hit, aux = trace_fn_aux(r)
-        tot["overflow"] = tot["overflow"] + aux["excess"]
-        tot["need_trace_k"] = jnp.maximum(tot["need_trace_k"], aux["need_k"])
-        tot["need_s"] = jnp.maximum(tot["need_s"], aux["need_s"])
-        return hit
-
-    def occlude_fn(r, t_max):
-        occ, aux = occlude_fn_aux(r, t_max)
-        tot["overflow"] = tot["overflow"] + aux["excess"]
-        tot["need_occ_k"] = jnp.maximum(tot["need_occ_k"], aux["need_k"])
-        tot["need_s"] = jnp.maximum(tot["need_s"], aux["need_s"])
-        return occ
-
-    for bounce in range(cfg.max_bounces):
-        contrib, ray, throughput, live = bounce_step(
-            scene, ray, throughput, live, cfg, trace_fn, occlude_fn)
-        radiance = radiance + contrib
-    return radiance, tot
 
 
 def render_image(

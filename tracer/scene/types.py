@@ -127,9 +127,8 @@ def compute_vertex_normals_jnp(verts: jax.Array, tris: jax.Array) -> jax.Array:
 def make_vertex_normal_fn(tris_np, n_verts: int):
     """Precompute a (V, D) face-incidence table from the STATIC topology
     and return a differentiable verts -> normals closure that assembles
-    area-weighted vertex normals with one GATHER instead of a scatter-add
-    (TPU scatter is sort-based and cost ~10 ms/step at 82k verts in the
-    grad loop; the gather is ~free). Padding slots index a zero face
+    area-weighted vertex normals with one GATHER instead of a
+    scatter-add, whose gradient is a scatter too. Padding slots index a zero face
     normal appended past the real faces."""
     tris_np = np.asarray(tris_np)
     n_faces = len(tris_np)

@@ -1,7 +1,7 @@
 """Headless image output.
 
 Reference parity: the reference blits frames to an interactive window
-(SURVEY.md R8). The TPU build is headless — frames are written as PNGs (a
+(SURVEY.md R8). This build is headless — frames are written as PNGs (a
 dependency-free encoder using stdlib zlib) and animated runs write numbered
 frame sequences (tracer.api.animate)."""
 from __future__ import annotations

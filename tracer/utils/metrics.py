@@ -15,6 +15,7 @@ import os
 import time
 
 import jax
+import numpy as np
 
 
 def is_host0() -> bool:
@@ -53,13 +54,40 @@ def profile_trace(enabled: bool, trace_dir: str | None = None):
     """jax.profiler.trace wrapper keyed on RenderConfig.profile.
 
     Writes an XProf trace (viewable in TensorBoard/Perfetto) to `trace_dir`
-    (default $TRACER_PROFILE_DIR or /tmp/tracer_profile) when enabled.
+    (default $TRACER_PROFILE_DIR or <repo>/.cache/profile) when enabled.
     """
     if not enabled:
         yield None
         return
-    d = trace_dir or os.environ.get("TRACER_PROFILE_DIR", "/tmp/tracer_profile")
+    from tracer.utils.cache import CACHE_DIR
+
+    d = trace_dir or os.environ.get("TRACER_PROFILE_DIR",
+                                    os.path.join(CACHE_DIR, "profile"))
     os.makedirs(d, exist_ok=True)
     with jax.profiler.trace(d):
         yield d
     print(f"[profile] jax.profiler trace written to {d}", flush=True)
+
+
+def dist_check(img, ref, frac_tol=1e-2, p98_tol=1e-5, rtol=1e-4, atol=1e-4):
+    """Two-sided image equality gate for a render path against its
+    reference (distribution tiers, kernel vs plain walk): a flip budget
+    alone would let a broad numeric regression hide inside it, so the
+    non-edge field is also pinned by a percentile bound.
+
+    img == ref up to (a) a small fraction of edge/tie pixels that may
+    legitimately flip across different XLA compilations (fp32 nearest-hit
+    ties at silhouettes), AND (b) a tight percentile bound proving the
+    rest of the field agrees to fp32 rounding, not just to the loose
+    flip tolerance."""
+    img = np.asarray(img)
+    ref = np.asarray(ref)
+    if not np.isfinite(img).all():
+        raise AssertionError("non-finite pixels")
+    mismatch = np.mean(~np.isclose(img, ref, rtol=rtol, atol=atol))
+    if not mismatch < frac_tol:
+        raise AssertionError(f"{mismatch:.3%} pixels differ")
+    err = np.abs(img - ref).max(axis=-1)
+    p98 = np.percentile(err, 98)
+    if not p98 < p98_tol:
+        raise AssertionError(f"p98 err {p98:.2e} (>{p98_tol:.0e})")
